@@ -1,12 +1,12 @@
-"""FourierBSDF table IO: the SCATFUN binary format, densified for TPU.
+"""FourierBSDF table IO: the SCATFUN binary format, densified for the device.
 
 The reference (src/core/reflection.rs:193-333 FourierBSDFTable::read) keeps
 the measured-BSDF Fourier coefficients as a ragged CSR-style array (per
-(mu_i, mu_o) pair a variable-order coefficient run). Ragged access is a
-scalar-core disaster on TPU, so the host reader densifies to a fixed
-(nmu^2, 3, m_cap) tensor with zero padding — device evaluation of the
-azimuthal series then becomes a plain matvec against a cos(k*phi) basis
-(MXU work), and all per-pair lookups are uniform-width row gathers.
+(mu_i, mu_o) pair a variable-order coefficient run). Ragged access does
+not vectorize, so the host reader densifies to a fixed (nmu^2, 3, m_cap)
+tensor with zero padding — device evaluation of the azimuthal series then
+becomes a plain matvec against a cos(k*phi) basis, and all per-pair lookups
+are uniform-width row gathers.
 
 Channel convention: tables store luminance Y (+ R, B for nchannels==3);
 G is derived as 1.39829*Y - 0.100913*B - 0.297375*R. For monochromatic

@@ -14,6 +14,6 @@ class Options:
     to_ply: bool = False
     image_file: str = ""
     crop_window: tuple | None = None  # (x0, x1, y0, y1)
-    # TPU-specific knobs (no reference equivalent):
+    # device knobs (no reference equivalent):
     wave_size: int = 1 << 17  # rays per device wave
     seed: int = 0

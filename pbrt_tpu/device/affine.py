@@ -1,11 +1,10 @@
 """Explicit-arithmetic affine transforms for geometry.
 
 These replace `jnp.einsum` at every ray/point/normal transform site. A
-3-wide einsum contraction lowers to a `dot_general`, which the TPU backend
-pads onto the 128x128 MXU — wasteful for 3x4 matrices, and (before the
-global f32-precision default) silently rounded geometry through bfloat16.
-Written as explicit multiply-adds these stay on the VPU at full f32
-precision and fuse with neighbouring elementwise work.
+3-wide einsum contraction lowers to a `dot_general`, which may be handed to
+a matrix unit at reduced precision — wasteful for 3x4 matrices, and a way
+to round geometry. Written as explicit multiply-adds these stay elementwise
+at full f32 precision and fuse with neighbouring elementwise work.
 
 All helpers broadcast: `m` may be a static (3, 4) / (4, 4) matrix or a
 batched (..., 3, 4) stack; `p`/`v`/`n` are (..., 3) with any mutually

@@ -1,6 +1,6 @@
 """Bidirectional path tracing (BDPT).
 
-TPU-native redesign of src/integrators/bdpt.rs: the reference's per-pixel
+Array-program redesign of src/integrators/bdpt.rs: the reference's per-pixel
 camera/light subpath generation (:861, :896) becomes two batched random
 walks filling fixed-width SoA vertex arrays (R, NV, ...); every (s, t)
 connection strategy (:1250) runs as a masked batched kernel over the whole

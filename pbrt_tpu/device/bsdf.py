@@ -1,6 +1,6 @@
 """Batched BSDF layer: fixed-slot lobe sets in the shading frame.
 
-TPU-native redesign of the reference's arena-allocated BxDF aggregates
+Array-program redesign of the reference's arena-allocated BxDF aggregates
 (src/core/reflection.rs:1496-1712 BSDF with <=8 BxDFs): every ray carries a
 fixed-width SoA block of up to 8 lobes; construction masks per material kind
 (src/materials/*), evaluation/sampling are generic over lobe kind so one
@@ -647,7 +647,7 @@ def bsdf_sample(lobes, wo, u_lobe, u1, u2, mode: str = "radiance"):
     n_act = jnp.sum(active, axis=1)
     pick = jnp.minimum((u_lobe * n_act).astype(jnp.int32), jnp.maximum(n_act - 1, 0))
     cum = jnp.cumsum(active, axis=1) - 1
-    # one-hot slot selection (row gathers run on the TPU scalar core)
+    # one-hot slot selection over the 8 lobe slots
     sel = active & (cum == pick[:, None])
     k = jnp.sum(jnp.where(sel, kinds, 0), axis=1)
     dat = jnp.sum(jnp.where(sel[:, :, None], data, 0.0), axis=1)

@@ -1,6 +1,6 @@
 """Device-side tabulated BSSRDF: profile eval, importance sampling, pdfs.
 
-TPU-native redesign of the reference's TabulatedBSSRDF
+Array-program redesign of the reference's TabulatedBSSRDF
 (src/core/bssrdf.rs:271-545). The reference interpolates a 2D
 (albedo x optical-radius) Catmull-Rom spline per evaluation; here the
 ALBEDO dimension is folded at scene-compile time (each material's
@@ -14,7 +14,7 @@ per-material 64-entry radial rows:
     radius_samples (64,)    shared optical-radius knots
 
 All lookups into the 64-knot axis are masked compares + weighted sums
-(VPU-only, no gathers). Sampling inverts the radial CDF with a bisection /
+(elementwise, no gathers). Sampling inverts the radial CDF with a bisection /
 Newton hybrid on the containing spline segment, matching the reference's
 sample_catmull_rom_2d (interpolation.rs) so pdf_sr is exact for the
 sampling distribution.
@@ -64,7 +64,7 @@ def _segment_state(radius, x):
     has_prev/has_next, inside). radius: (64,); x: (R,)."""
     n = radius.shape[0]
     inside = (x >= radius[0]) & (x <= radius[-1])
-    # index of the last knot <= x (VPU compare+sum, no searchsorted gather)
+    # index of the last knot <= x (compare+sum, no searchsorted gather)
     i = jnp.sum((radius[None, :] <= x[:, None]).astype(jnp.int32), axis=1) - 1
     i = jnp.clip(i, 0, n - 2)
     return i, inside

@@ -4,17 +4,19 @@ The reference tracks every intersection quantity as an interval
 [low, high] widened by one ulp (next_float_down/up) after each operation,
 then accepts a quadric root iff its interval is strictly positive and its
 upper bound is within t_max (sphere.rs:91-102). Per-lane next-ulp bit
-bumps are scalar-hostile on TPU, so this module widens by +/- 2*eps*|x|
+bumps are costly integer work per lane, so this module widens by +/- 2*eps*|x|
 instead — for normal f32, |next_float_up(x) - x| <= 2*eps*|x|, so the
 interval here always CONTAINS the reference's (conservative, never
 tighter in the unsafe direction). Exact zeros stay zero, which matches
-TPU denormal flushing (next_float_down(0) is a denormal = 0 on chip).
+denormal flushing (next_float_down(0) is a denormal, flushed to 0 under
+XLA's default flush-to-zero).
 
 Values are (v, lo, hi) triples of same-shape f32 arrays. Only the ops the
 quadric solves need are provided.
 
 Deviation from the reference, documented: quadratic() computes the
-discriminant in f32 (efloat.rs:211 uses f64) — TPUs have no fast f64.
+discriminant in f32 (efloat.rs:211 uses f64); an f64 discriminant is a
+fidelity item on the roadmap.
 The b*b and 4ac products are widened by the interval rules instead, so
 near-tangent hits degrade to conservative misses rather than phantoms.
 """
@@ -127,7 +129,7 @@ def quadratic(a, b, c):
     rd = jnp.sqrt(jnp.maximum(disc, 0.0))
     # interval discriminant: the f32 cancellation error of b*b - 4ac is NOT
     # bounded by eps*rd (the reference sidesteps this with an f64 disc,
-    # efloat.rs:212 — no f64 on TPU), so propagate bounds through the
+    # efloat.rs:212; here f32 throughout), so propagate bounds through the
     # products and sqrt instead
     Edisc = sub(sqr(b), mul(mul(ef(jnp.float32(4.0)), a), c))
     frd = (rd,

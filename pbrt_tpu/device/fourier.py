@@ -1,14 +1,14 @@
-"""FourierBSDF device evaluation: measured-BSDF Fourier tables on TPU.
+"""FourierBSDF device evaluation: measured-BSDF Fourier tables.
 
 Reference: src/core/reflection.rs:1237-1485 (FourierBSDF f/sample_f/pdf) and
 src/core/interpolation.rs (catmull_rom_weights, sample_catmull_rom_2d,
-fourier, sample_fourier). TPU-native reshaping:
+fourier, sample_fourier). Array-program reshaping:
 
 - the ragged per-(mu_i, mu_o) coefficient runs are densified host-side
   (core/fourierbsdf.py) to a fixed (nmu^2, 3, m_cap) tensor, so device
   lookups are uniform-width row gathers;
 - the azimuthal cosine series sum_k a_k cos(k phi) is evaluated as a dense
-  (R, m_cap) basis contraction (MXU-friendly) instead of the reference's
+  (R, m_cap) basis contraction instead of the reference's
   scalar double-angle recurrence;
 - both Newton-bisection inversions (the mu_i spline CDF and the phi Fourier
   CDF) run as fixed-trip-count `lax.fori_loop`s over the whole wave, with
@@ -16,8 +16,8 @@ fourier, sample_fourier). TPU-native reshaping:
 
 Cost note: each shading point touches 16 coefficient rows (4x4 spline
 stencil); this is inherent to the representation (the reference does the
-same per intersection) and is the one material where HBM traffic, not the
-MXU, is the bound.
+same per intersection) and is the one material where device-memory
+traffic, not arithmetic, is the bound.
 
 All entry points take `ft`, the stacked-table dict built by the scene
 builder: mu (NT,NMU), aflat (NT,NMU*NMU,3*MCAP), a0 (NT,NMU,NMU),
@@ -34,7 +34,7 @@ _N_NEWTON = 16
 
 
 def _sel(row_mat, i):
-    """One-hot select row_mat[r, i[r]] without a scalar-core gather."""
+    """One-hot select row_mat[r, i[r]] without a gather."""
     n = row_mat.shape[-1]
     oh = jnp.arange(n)[None, :] == i[:, None]
     return jnp.sum(jnp.where(oh, row_mat, 0.0), axis=-1)

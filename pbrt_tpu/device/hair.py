@@ -1,11 +1,11 @@
-"""Hair fiber BSDF: the Marschner/d'Eon-style 4-lobe model on TPU.
+"""Hair fiber BSDF: the Marschner/d'Eon-style 4-lobe model.
 
 Reference: src/materials/hair.rs (HairBSDF, 650 LoC) — longitudinal
 Gaussian-like Mp terms (modified-Bessel form), azimuthal trimmed-logistic
 Np terms, Fresnel/absorption attenuation Ap for p = R, TT, TRT plus a
 compact residual lobe, and hair-scale tilt via the 2^k-alpha double angles.
 
-TPU-native shape: everything is a straight-line batched formula over the
+Batched shape: everything is a straight-line batched formula over the
 wave — the reference's per-p loop is unrolled (PMAX=3 is static), the
 angle-wrapping `while` becomes a modulo, and Bessel i0 is a fixed 10-term
 series. Local frame convention matches the lobe system (device/bsdf.py):

@@ -1,6 +1,6 @@
 """Wavefront integrators: path, directlighting, whitted, ao.
 
-TPU-native redesign of the reference's recursive per-pixel integrators
+Array-program redesign of the reference's recursive per-pixel integrators
 (src/integrators/path.rs li :79-222, directlighting.rs, whitted.rs, ao.rs;
 shared NEE/MIS kernel src/core/integrator.rs estimate_direct :109-237):
 the per-ray recursion becomes a bounded bounce loop over a whole ray wave
@@ -23,7 +23,6 @@ from .intersect import intersect, intersect_p
 from .lights import area_light_emission, env_le, env_pdf_li, pdf_li_area_hit, sample_li
 from .materials import make_bsdf
 from .sampler import sample_1d, sample_2d
-from .gather import gather_rows
 from .shading import apply_bump, surface_interaction
 
 F32 = jnp.float32
@@ -52,7 +51,7 @@ def _next_float_away(x, direction):
     nonneg = x >= 0
     bump = jnp.where(up == nonneg, jnp.uint32(1), jnp.uint32(0xFFFFFFFF))  # +1 or -1
     moved = jax.lax.bitcast_convert_type(bits + bump, F32)
-    # zero can't be bit-bumped meaningfully (denormals flush on TPU): step
+    # zero can't be bit-bumped meaningfully (denormals flush to zero): step
     # to the smallest normal of the right sign instead
     tiny = jnp.float32(1.17549435e-38)
     moved = jnp.where(x == 0.0, jnp.where(up, tiny, -tiny), moved)
@@ -266,7 +265,7 @@ def trace_wave(sa: SceneArrays, static: SceneStatic, icfg: dict, scfg: dict, see
             in_scatter = alive & ms["hit_medium"]
             beta = jnp.where((alive & (medium >= 0))[:, None], beta * ms["weight"], beta)
             p_med = o + d * ms["t"][:, None]
-            g_par = gather_rows(sa.med_param, jnp.maximum(medium, 0))[:, 6]
+            g_par = sa.med_param[jnp.maximum(medium, 0)][:, 6]
             med_vertex = {"p": p_med, "wo": -d, "g": g_par, "active": in_scatter}
         else:
             in_scatter = jnp.zeros(R, bool)
@@ -289,7 +288,7 @@ def trace_wave(sa: SceneArrays, static: SceneStatic, icfg: dict, scfg: dict, see
             emitting = alive & ~in_scatter & (lid >= 0)
             le = area_light_emission(sa, lid, si["ng"], si["wo"])
             if nee_on:
-                area = gather_rows(sa.prim_area, jnp.maximum(si["prim"], 0))
+                area = sa.prim_area[jnp.maximum(si["prim"], 0)]
                 p_l = pdf_li_area_hit(sa, prev_p, si["p"], si["ng"], lid, area, cone_spheres=static.has_cone_sphere_lights) * _sel_pmf_of(jnp.maximum(lid, 0), prev_p)
                 w = jnp.where(prev_specular, 1.0, power_heuristic(1.0, prev_pdf, 1.0, p_l))
             else:
@@ -404,11 +403,11 @@ def trace_wave(sa: SceneArrays, static: SceneStatic, icfg: dict, scfg: dict, see
         from .bssrdf import pdf_sp, sample_radial_cdf, sr_eval, sw_factor
 
         mat = jnp.maximum(si["mat"], 0)
-        sigt3 = gather_rows(sa.sss_sigma_t, mat)
-        prof3 = gather_rows(sa.sss_prof, mat)
-        cdf3 = gather_rows(sa.sss_cdf, mat)
-        rhoeff3 = gather_rows(sa.sss_rhoeff, mat)
-        eta_m = gather_rows(sa.sss_eta, mat)
+        sigt3 = sa.sss_sigma_t[mat]
+        prof3 = sa.sss_prof[mat]
+        cdf3 = sa.sss_cdf[mat]
+        rhoeff3 = sa.sss_rhoeff[mat]
+        eta_m = sa.sss_eta[mat]
         radius = sa.sss_radius
         ssv, tsv, nsv = si["ss"], si["ts"], si["ns"]
 
@@ -447,7 +446,7 @@ def trace_wave(sa: SceneArrays, static: SceneStatic, icfg: dict, scfg: dict, see
         for _k in range(K_PROBE):
             hk = intersect(sa, static, base, vz, t_rem, sort_rays=True)
             hv = hk["prim"] >= 0
-            hmat = gather_rows(sa.prim_mat, jnp.maximum(hk["prim"], 0))
+            hmat = sa.prim_mat[jnp.maximum(hk["prim"], 0)]
             match = hv & (hmat == si["mat"])
             recs.append((match, hk, base))
             step = jnp.where(hv, hk["t"] + RAY_EPS, 0.0)
@@ -524,7 +523,7 @@ def trace_wave(sa: SceneArrays, static: SceneStatic, icfg: dict, scfg: dict, see
         on_surface = can_scatter & si["valid"] & ~in_scatter
         # null-material boundary: pass through, swap medium, free of depth
         if pass_null:
-            mat_kind_hit = gather_rows(sa.mat_kind, si["mat"])
+            mat_kind_hit = sa.mat_kind[si["mat"]]
             is_null = on_surface & (mat_kind_hit == 0) & (si["light"] < 0)
             on_surface = on_surface & ~is_null
         else:
@@ -597,7 +596,7 @@ def trace_wave(sa: SceneArrays, static: SceneStatic, icfg: dict, scfg: dict, see
         if static.has_tab_sss and ikind in ("path", "volpath"):
             from ..scene.arrays import MAT_KDSUBSURFACE, MAT_SUBSURFACE
 
-            mk_sss = gather_rows(sa.mat_kind, jnp.maximum(si["mat"], 0))
+            mk_sss = sa.mat_kind[jnp.maximum(si["mat"], 0)]
             is_sss_mat = (mk_sss == MAT_SUBSURFACE) | (mk_sss == MAT_KDSUBSURFACE)
             crossed = _dot(wi_w, si["ng"]) * _dot(si["wo"], si["ng"]) < 0
             do_sss = surf_cont & is_sss_mat & bs["specular"] & crossed
@@ -608,7 +607,7 @@ def trace_wave(sa: SceneArrays, static: SceneStatic, icfg: dict, scfg: dict, see
 
         # medium transition on transmission through a medium-interface surface
         if handle_media or pass_null:
-            pm = gather_rows(sa.prim_medium, jnp.maximum(si["prim"], 0))
+            pm = sa.prim_medium[jnp.maximum(si["prim"], 0)]
             transition = pm[:, 0] != pm[:, 1]
             crossing_dir = _dot(new_d, si["ng"]) < 0
             crossed_med = jnp.where(crossing_dir, pm[:, 0], pm[:, 1])
@@ -809,7 +808,7 @@ def trace_persistent(sa: SceneArrays, static: SceneStatic, icfg: dict, scfg: dic
             lid = si["light"]
             emitting = alive & (lid >= 0)
             le = area_light_emission(sa, lid, si["ng"], si["wo"])
-            area = gather_rows(sa.prim_area, jnp.maximum(si["prim"], 0))
+            area = sa.prim_area[jnp.maximum(si["prim"], 0)]
             p_l = pdf_li_area_hit(sa, prev_p, si["p"], si["ng"], lid, area, cone_spheres=static.has_cone_sphere_lights) * _sel_pmf_of(jnp.maximum(lid, 0), prev_p)
             w = jnp.where(prev_spec, 1.0, power_heuristic(1.0, prev_pdf, 1.0, p_l))
             L = L + jnp.where(emitting[:, None], beta * le * w[:, None], 0.0)

@@ -1,15 +1,16 @@
 """Batched ray-scene intersection: triangle / sphere kernels + BVH traversal.
 
-TPU-native replacement of the reference's recursive primitive dispatch:
+Array-program replacement of the reference's recursive primitive dispatch:
 - watertight ray-triangle test vectorized over (rays x prims) lanes
   (algorithm of src/shapes/triangle.rs:136-399, minus the per-ray EFloat
   bookkeeping — conservative epsilons replace exact error intervals)
 - quadric sphere test (src/shapes/sphere.rs) against object-space rays
 - flat-BVH traversal (node layout of src/accelerators/bvh.rs:89-95) as a
-  `lax.while_loop` megakernel with a per-ray short stack, front-to-back
-  child ordering by ray direction sign (bvh.rs:705-760)
-- brute-force all-pairs path for small scenes, which maps to pure VPU work
-  with zero divergence.
+  `lax.while_loop` over packets that share a short stack, front-to-back
+  child ordering by ray direction sign (bvh.rs:705-760); on CUDA, static
+  triangle scenes use the per-ray kernel of device/bvh_kernel.py instead
+- brute-force all-pairs path for small scenes: pure elementwise work with
+  zero divergence.
 
 All functions are batched over a leading ray axis R and jit-compatible.
 """
@@ -21,9 +22,10 @@ import jax
 import jax.numpy as jnp
 
 from ..scene.arrays import GEOM_SPHERE, GEOM_TRI, SceneArrays, SceneStatic
+from . import bvh_kernel
 
 F32 = jnp.float32
-INF = jnp.float32(jnp.inf)
+INF = float("inf")  # a Python float: no module-level device constant
 STACK_DEPTH = 64
 # conservative hit-epsilon in lieu of the reference's EFloat error bounds
 SHADOW_EPS = 1e-4
@@ -54,8 +56,7 @@ def ray_triangle(o, d, p0, p1, p2, t_max):
     p2t = p2 - o
 
     # permute so |dz| is max (triangle.rs max_dimension + permute).
-    # NOTE: expressed as where-chains, not take_along_axis — gathers run on
-    # the TPU scalar core and dominated this kernel.
+    # expressed as where-chains, not take_along_axis
     ad = jnp.abs(d)
     kz = jnp.argmax(ad, axis=-1)
     k0 = kz == 0
@@ -391,9 +392,6 @@ def _reduce_best(t, b1, b2, prim_ids):
 def _brute_all(sa: SceneArrays, static: SceneStatic, o, d, t_max, time=None):
     """All-pairs tests with pure broadcasting — zero gathers.
 
-    TPU note: gathers execute on the scalar core and dominated the original
-    formulation (~25x slower); testing every ray against every primitive
-    row by broadcast keeps the whole kernel on the VPU.
     Returns (t (R, P), b1, b2) in PRIMITIVE-ROW order (tris then spheres by
     their table positions mapped through tri->prim / sph->prim maps built on
     host in SceneStatic... here we reconstruct by concatenation order).
@@ -449,7 +447,7 @@ def _brute_all(sa: SceneArrays, static: SceneStatic, o, d, t_max, time=None):
 
 def _select_min(t, cols):
     """Row-wise argmin selection of several (R, K) arrays without gathers:
-    builds the argmin one-hot by equality and reduces (VPU-only)."""
+    builds the argmin one-hot by equality and reduces."""
     tbest = jnp.min(t, axis=1)
     is_min = t == tbest[:, None]
     # break ties toward the lowest column index
@@ -478,7 +476,7 @@ def intersect_p_brute(sa: SceneArrays, static: SceneStatic, o, d, t_max, time=No
 
 
 # ---------------------------------------------------------------------------
-# BVH packet traversal megakernel
+# BVH packet traversal
 # ---------------------------------------------------------------------------
 
 PACKET = 256  # rays per packet (share one traversal stack)
@@ -487,15 +485,14 @@ PACKET = 256  # rays per packet (share one traversal stack)
 def _traverse(sa: SceneArrays, static: SceneStatic, o, d, t_max, any_hit: bool, time=None):
     """Packet BVH traversal: packets of PACKET rays share ONE stack.
 
-    Redesign of the per-ray stack walk (bvh.rs:705-760) for the TPU memory
-    system: per-ray traversal needs per-lane gathers/scatters, which execute
-    on the scalar core and measured ~0.02 Mray/s. With per-PACKET stacks all
-    node/primitive accesses are small (B,)-shaped gathers (B = number of
-    packets), the AABB/primitive tests stay fully vectorized over lanes, and
-    leaf primitive rows are CONTIGUOUS (builder permutes prims into BVH leaf
+    All node/primitive accesses are small (B,)-shaped gathers (B = number of
+    packets), the AABB/primitive tests stay vectorized over lanes, and leaf
+    primitive rows are CONTIGUOUS (the builder permutes prims into BVH leaf
     order). A packet descends into a subtree if ANY of its rays wants to;
     coherent waves (camera/shadow) lose little, incoherent bounces pay a
-    union-of-paths cost (mitigated later by ray sorting).
+    union-of-paths cost (mitigated by ray sorting). This is the plain
+    reference for the per-ray kernel in device/bvh_kernel.py and the path
+    for every scene that kernel does not cover.
     """
     R = o.shape[0]
     max_leaf = static.max_leaf
@@ -747,69 +744,28 @@ def _ray_sort_key(sa, o, d, t_max=None):
     return key
 
 
-def _sorted_traverse(sa, static, o, d, t_max, any_hit, time):
-    key = _ray_sort_key(sa, o, d, t_max)
-    # barrier: keep the permutation's gathers on the fast lowering (see
-    # gather.gather_rows)
-    perm = jax.lax.optimization_barrier(jnp.argsort(key))
-    o_s = o[perm]
-    d_s = d[perm]
+def _sorted(fn, sa, o, d, t_max, time):
+    """Run fn(o, d, t_max, time) on the wave reordered by _ray_sort_key and
+    return its outputs in the caller's order."""
+    perm = jnp.argsort(_ray_sort_key(sa, o, d, t_max))
     tm = jnp.broadcast_to(jnp.asarray(t_max, F32), (o.shape[0],))[perm]
     time_s = None if time is None else jnp.broadcast_to(jnp.asarray(time, F32), (o.shape[0],))[perm]
-    hit, hit_any = _traverse(sa, static, o_s, d_s, tm, any_hit=any_hit, time=time_s)
-    inv = jax.lax.optimization_barrier(jnp.argsort(perm))
-    hit = {k: v[inv] for k, v in hit.items()}
-    return hit, hit_any[inv]
+    out = fn(o[perm], d[perm], tm, time_s)
+    inv = jnp.argsort(perm)
+    return jax.tree_util.tree_map(lambda v: v[inv], out)
 
 
-def _pallas_route(static) -> bool:
-    """Route closest-hit through the Pallas wide-BVH kernel?
-
-    On the TPU backend the single-kernel traversal is ~4x the XLA packet
-    loop (which pays a ~60us floor per lockstep while_loop iteration). On
-    CPU the kernel runs in (slow) interpret mode, so tests must opt in via
-    PBRT_TPU_WIDE=1."""
-    import os
-
-    if not static.has_wide:
-        return False
-    env = os.environ.get("PBRT_TPU_WIDE", "")
-    if env == "0":
-        return False
-    if jax.default_backend() == "cpu":
-        return env == "1"
-    return True
+def _sorted_traverse(sa, static, o, d, t_max, any_hit, time):
+    return _sorted(lambda o, d, tm, ts: _traverse(sa, static, o, d, tm, any_hit=any_hit, time=ts),
+                   sa, o, d, t_max, time)
 
 
-def _binned_route(static) -> bool:
-    """Route through the binned per-ray tier (device/binned.py)?
-
-    Dense per-ray culling + fixed-slot candidate extraction — no packets,
-    no stacks, so incoherent bounce waves run at coherent-wave rates.
-    Opt-out via PBRT_TPU_BINNED=0."""
-    import os
-
-    if not getattr(static, "has_cluster", False):
-        return False
-    if getattr(static, "n_clusters", 0) > 8192:
-        return False  # dense super cull scales with S; big scenes keep packets
-    # opt-in: the binned tier is coherence-free but plateaus at ~1.2
-    # Mrays/s on the 123k-tri bench (XLA gather/row-DMA floor) — the
-    # packet kernel still wins coherent waves 4x, so it stays default
-    return os.environ.get("PBRT_TPU_BINNED", "") == "1"
-
-
-def _wide_closest(sa, static, o, d, t_max, sort=False):
-    from .pallas_bvh import wide_intersect
-
-    interp = jax.default_backend() == "cpu"
-    t, prim, hitm, b1, b2 = wide_intersect(sa, static, o, d, t_max, interpret=interp, sort=sort)
-    return {
-        "t": jnp.where(hitm, t, INF),
-        "prim": prim,
-        "b1": jnp.where(hitm, jnp.clip(b1, 0.0, 1.0), 0.0),
-        "b2": jnp.where(hitm, jnp.clip(b2, 0.0, 1.0), 0.0),
-    }
+def _kernel_traverse(sa, static, o, d, t_max, any_hit, sort):
+    """Per-ray traversal kernel where the platform has one (bvh_kernel)."""
+    fn = bvh_kernel.occluded if any_hit else bvh_kernel.closest
+    if sort:
+        return _sorted(lambda o, d, tm, _ts: fn(sa, static, o, d, tm), sa, o, d, t_max, None)
+    return fn(sa, static, o, d, t_max)
 
 
 def _intersect_once(sa: SceneArrays, static: SceneStatic, o, d, t_max, time=None, sort_rays=False):
@@ -823,20 +779,10 @@ def _intersect_once(sa: SceneArrays, static: SceneStatic, o, d, t_max, time=None
     if static.accel_kind == "kdtree":
         hit, _ = _traverse_kd(sa, static, o, d, t_max, any_hit=False, time=time)
         return hit
-    if time is None and _binned_route(static):
-        from .binned import binned_intersect
-
-        t, prim, hitm, b1, b2 = binned_intersect(sa, static, o, d, t_max)
-        return {
-            "t": jnp.where(hitm, t, INF),
-            "prim": prim,
-            "b1": jnp.where(hitm, jnp.clip(b1, 0.0, 1.0), 0.0),
-            "b2": jnp.where(hitm, jnp.clip(b2, 0.0, 1.0), 0.0),
-        }
-    if time is None and _pallas_route(static):
-        sort = sort_rays and static.n_prims >= SORT_MIN_PRIMS
-        return _wide_closest(sa, static, o, d, t_max, sort=sort)
-    if sort_rays and static.n_prims >= SORT_MIN_PRIMS:
+    sort = sort_rays and static.n_prims >= SORT_MIN_PRIMS
+    if bvh_kernel.eligible(static):
+        return _kernel_traverse(sa, static, o, d, t_max, False, sort)
+    if sort:
         hit, _ = _sorted_traverse(sa, static, o, d, t_max, False, time)
         return hit
     hit, _ = _traverse(sa, static, o, d, t_max, any_hit=False, time=time)
@@ -854,28 +800,14 @@ def _intersect_p_once(sa: SceneArrays, static: SceneStatic, o, d, t_max, time=No
     if static.accel_kind == "kdtree":
         _, hit_any = _traverse_kd(sa, static, o, d, t_max, any_hit=True, time=time)
         return hit_any
-    if time is None and _binned_route(static):
-        from .binned import binned_intersect
-
-        _t, _prim, hit_any, _b1, _b2 = binned_intersect(
-            sa, static, o, d, t_max, any_hit=True)
-        return hit_any
-    if time is None and _pallas_route(static):
-        from .pallas_bvh import wide_intersect
-
-        interp = jax.default_backend() == "cpu"
-        sort = sort_rays and static.n_prims >= SORT_MIN_PRIMS
-        _t, _slot, hit_any = wide_intersect(
-            sa, static, o, d, t_max, any_hit=True, interpret=interp, sort=sort
-        )
-        return hit_any
-    if sort_rays and static.n_prims >= SORT_MIN_PRIMS:
+    sort = sort_rays and static.n_prims >= SORT_MIN_PRIMS
+    if bvh_kernel.eligible(static):
+        return _kernel_traverse(sa, static, o, d, t_max, True, sort)
+    if sort:
         _, hit_any = _sorted_traverse(sa, static, o, d, t_max, True, time)
         return hit_any
     _, hit_any = _traverse(sa, static, o, d, t_max, any_hit=True, time=time)
     return hit_any
-
-
 
 
 # ---------------------------------------------------------------------------

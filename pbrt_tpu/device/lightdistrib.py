@@ -1,6 +1,6 @@
 """Spatial (voxel-grid) light sampling distribution.
 
-TPU-native redesign of the reference's SpatialLightDistribution
+Array-program redesign of the reference's SpatialLightDistribution
 (src/core/lightdistrib.rs:153-339): instead of a lock-free hash table filled
 lazily per voxel (CAS claim + spin wait), the WHOLE voxel grid of per-light
 CDFs is precomputed in one batched device pass at scene setup — voxels x

@@ -23,7 +23,6 @@ from ..scene.arrays import (
     SceneArrays,
     SceneStatic,
 )
-from .gather import gather_rows
 from .affine import xf_vector, xf_vector_t
 from .intersect import _xform_point
 
@@ -202,10 +201,10 @@ def _sample_prim_point(sa: SceneArrays, prim_ids, u1, u2):
     spheres: uniform area sampling (sphere.rs sample).
     """
     prim = jnp.maximum(prim_ids, 0)
-    kind = gather_rows(sa.prim_kind, prim)
-    geom = gather_rows(sa.prim_geom, prim)
-    flags = gather_rows(sa.prim_flags, prim)
-    area = gather_rows(sa.prim_area, prim)
+    kind = sa.prim_kind[prim]
+    geom = sa.prim_geom[prim]
+    flags = sa.prim_flags[prim]
+    area = sa.prim_area[prim]
     R = prim.shape[0]
     p = jnp.zeros((R, 3), F32)
     n = jnp.zeros((R, 3), F32)
@@ -213,7 +212,7 @@ def _sample_prim_point(sa: SceneArrays, prim_ids, u1, u2):
 
     if sa.tri_p.shape[0] > 0:
         ti = jnp.where(is_tri, geom, 0)
-        tv = gather_rows(sa.tri_p, ti)
+        tv = sa.tri_p[ti]
         b0, b1 = uniform_sample_triangle(u1, u2)
         pt = b0[:, None] * tv[:, 0] + b1[:, None] * tv[:, 1] + (1.0 - b0 - b1)[:, None] * tv[:, 2]
         e1 = tv[:, 1] - tv[:, 0]
@@ -230,10 +229,10 @@ def _sample_prim_point(sa: SceneArrays, prim_ids, u1, u2):
         )
 
         si = jnp.where(~is_tri, geom, 0)
-        o2w = gather_rows(sa.sph_o2w, si)
-        w2o = gather_rows(sa.sph_w2o, si)
-        par = gather_rows(sa.sph_param, si)
-        qk = gather_rows(sa.sph_kind, si)
+        o2w = sa.sph_o2w[si]
+        w2o = sa.sph_w2o[si]
+        par = sa.sph_param[si]
+        qk = sa.sph_kind[si]
         is_cyl = qk == QUADRIC_CYLINDER
         is_disk = qk == QUADRIC_DISK
         is_cone = qk == QUADRIC_CONE
@@ -309,7 +308,7 @@ def _sample_prim_point(sa: SceneArrays, prim_ids, u1, u2):
 def area_light_emission(sa: SceneArrays, light_ids, n_light, w):
     """L emitted from an area light toward direction w (diffuse.rs l())."""
     li = jnp.maximum(light_ids, 0)
-    par = gather_rows(sa.light_param, li)
+    par = sa.light_param[li]
     lemit = par[:, 0:3]
     two_sided = par[:, 3] > 0
     emits = two_sided | (_dot(n_light, w) > 0)
@@ -337,8 +336,8 @@ def sample_li(sa: SceneArrays, static: SceneStatic, light_ids, p_ref, u1, u2,
     """
     R = p_ref.shape[0]
     lid = jnp.maximum(light_ids, 0)
-    kind = gather_rows(sa.light_kind, lid) if static.n_lights else jnp.zeros(R, jnp.int32)
-    par = gather_rows(sa.light_param, lid) if static.n_lights else jnp.zeros((R, 12), F32)
+    kind = sa.light_kind[lid] if static.n_lights else jnp.zeros(R, jnp.int32)
+    par = sa.light_param[lid] if static.n_lights else jnp.zeros((R, 12), F32)
 
     wi = jnp.zeros((R, 3), F32)
     li = jnp.zeros((R, 3), F32)
@@ -397,7 +396,7 @@ def sample_li(sa: SceneArrays, static: SceneStatic, light_ids, p_ref, u1, u2,
     area_out = jnp.ones(R, F32)
     if static.has_area_lights:
         m_area = kind == LIGHT_AREA
-        lprim = gather_rows(sa.light_prim, lid)
+        lprim = sa.light_prim[lid]
         ps, ns, area = _sample_prim_point(sa, lprim, u1, u2)
         n_lp = jnp.where(m_area[:, None], ns, n_lp)
         area_out = jnp.where(m_area, area, area_out)
@@ -465,16 +464,16 @@ def _sphere_cone_info(sa: SceneArrays, prim_ids):
     from ..scene.arrays import GEOM_SPHERE, QUADRIC_SPHERE
 
     prim = jnp.maximum(prim_ids, 0)
-    kind = gather_rows(sa.prim_kind, prim)
-    geom = gather_rows(sa.prim_geom, prim)
+    kind = sa.prim_kind[prim]
+    geom = sa.prim_geom[prim]
     if sa.sph_param.shape[0] == 0:
         z = jnp.zeros(prim.shape[0], F32)
         return jnp.zeros(prim.shape[0], bool), jnp.zeros((prim.shape[0], 3), F32), z
     gi = jnp.where(kind == GEOM_SPHERE, geom, 0)
-    qk = gather_rows(sa.sph_kind, gi)
-    par = gather_rows(sa.sph_param, gi)
-    o2w = gather_rows(sa.sph_o2w, gi)
-    flags = gather_rows(sa.prim_flags, prim)
+    qk = sa.sph_kind[gi]
+    par = sa.sph_param[gi]
+    o2w = sa.sph_o2w[gi]
+    flags = sa.prim_flags[prim]
     r_o = par[:, 0]
     full = (par[:, 1] <= -r_o + 1e-6 * r_o) & (par[:, 2] >= r_o - 1e-6 * r_o) & \
         (par[:, 3] >= 2.0 * jnp.pi - 1e-6)
@@ -502,7 +501,7 @@ def pdf_li_area_hit(sa: SceneArrays, p_ref, hit_p, hit_ng, hit_light, prim_area_
     pdf = d2 / jnp.maximum(cos_l * prim_area_of_hit, 1e-12)
     pdf = jnp.where(cos_l > 1e-7, pdf, 0.0)
     if cone_spheres and sa.sph_param.shape[0] > 0:
-        lprim = gather_rows(sa.light_prim, jnp.maximum(hit_light, 0))
+        lprim = sa.light_prim[jnp.maximum(hit_light, 0)]
         is_sph, c_w, r_w = _sphere_cone_info(sa, lprim)
         to_c = c_w - p_ref
         dc2 = jnp.maximum(_dot(to_c, to_c), 1e-12)

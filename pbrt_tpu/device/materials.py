@@ -78,10 +78,10 @@ def _nonblack(c):
 class _LobeWriter:
     """Lazy SoA lobe accumulator.
 
-    TPU perf note: the original formulation updated a materialized
+    Perf note: the original formulation updated a materialized
     (R, 8, 14) tensor with `.at[:, slot].set` per put — each update streams
-    the full 45 MB block through HBM and XLA does not fuse the chains
-    (measured ~6 ms of make_bsdf's cost at 500k rays). Instead we keep, per
+    the full 45 MB block through device memory and XLA does not fuse the
+    chains. Instead we keep, per
     slot, 14 lazy (R,) columns updated by cheap `where` selects and stack
     ONCE at finalize; the whole writer then fuses into surrounding code.
     """
@@ -160,9 +160,8 @@ def make_bsdf(sa: SceneArrays, static: SceneStatic, mat_ids, uv, p, duvdx=None, 
     def param(slot):
         return material_param(sa, tex_values, mat_ids, slot)
 
-    from .gather import gather_rows
 
-    kind = gather_rows(sa.mat_kind, mat_ids)
+    kind = sa.mat_kind[mat_ids]
 
     if MAT_MIX in set(static.mat_kinds_present):
         # stochastic one-sample mixture (mix.rs evaluates both; the
@@ -180,15 +179,15 @@ def make_bsdf(sa: SceneArrays, static: SceneStatic, mat_ids, uv, p, duvdx=None, 
         bits = _rng.hash_combine(bx, by, bz, mat_ids.astype(jnp.uint32))
         u_mix = _rng.u32_to_float(bits)
         use1 = u_mix < q
-        sub1 = gather_rows(sa.mat_const[:, P_EXTRA, 0], mat_ids).astype(jnp.int32)
-        sub2 = gather_rows(sa.mat_const[:, P_EXTRA, 1], mat_ids).astype(jnp.int32)
+        sub1 = sa.mat_const[:, P_EXTRA, 0][mat_ids].astype(jnp.int32)
+        sub2 = sa.mat_const[:, P_EXTRA, 1][mat_ids].astype(jnp.int32)
         mix_scale = jnp.where(use1[:, None], amt / q[:, None], (1.0 - amt) / (1.0 - q)[:, None])
         mat_ids = jnp.where(is_mix, jnp.where(use1, sub1, sub2), mat_ids)
-        kind = gather_rows(sa.mat_kind, mat_ids)
+        kind = sa.mat_kind[mat_ids]
     else:
         is_mix = None
 
-    remap_row = gather_rows(sa.mat_remap, mat_ids)
+    remap_row = sa.mat_remap[mat_ids]
     remap = (remap_row & 1) != 0
     # bit 1 of mat_remap selects the Beckmann microfacet distribution
     # ("distribution" "beckmann", microfacet.rs:150); stored per micro lobe
@@ -282,8 +281,8 @@ def make_bsdf(sa: SceneArrays, static: SceneStatic, mat_ids, uv, p, duvdx=None, 
 
     if MAT_DISNEY in kinds:
         m = kind == MAT_DISNEY
-        ex = gather_rows(sa.mat_const[:, P_EXTRA], mat_ids)
-        ex2 = gather_rows(sa.mat_const[:, P_EXTRA2], mat_ids)
+        ex = sa.mat_const[:, P_EXTRA][mat_ids]
+        ex2 = sa.mat_const[:, P_EXTRA2][mat_ids]
         metallic = ex[:, 0]
         clearcoat = ex[:, 1]
         gloss = ex[:, 2]
@@ -327,7 +326,7 @@ def make_bsdf(sa: SceneArrays, static: SceneStatic, mat_ids, uv, p, duvdx=None, 
         # tabulated measured BSDF (materials/fourier.rs; reflection.rs
         # FourierBSDF): table id rides in data[12], tables in lobes["fourier"]
         m = kind == MAT_FOURIER
-        ex = gather_rows(sa.mat_const[:, P_EXTRA], mat_ids)
+        ex = sa.mat_const[:, P_EXTRA][mat_ids]
         w.put(5, m, LOBE_FOURIER, jnp.ones((R, 3), F32), ab=(ex[:, 0], jnp.zeros(R, F32)))
 
     if MAT_HAIR in kinds:
@@ -336,7 +335,7 @@ def make_bsdf(sa: SceneArrays, static: SceneStatic, mat_ids, uv, p, duvdx=None, 
         # inverted here per-pixel with beta_n (mode 1, textured color);
         # h = -1 + 2*v across the tessellated ribbon width (hair.rs:188)
         m = kind == MAT_HAIR
-        ex = gather_rows(sa.mat_const[:, P_EXTRA], mat_ids)
+        ex = sa.mat_const[:, P_EXTRA][mat_ids]
         alpha_deg = ex[:, 0]
         kd_raw = jnp.clip(param(P_KD), 0.0, None)  # sigma_a is unbounded above
         bn = jnp.clip(vrough, 1e-3, 1.0)

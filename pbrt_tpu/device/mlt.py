@@ -1,6 +1,6 @@
 """Metropolis light transport (PSSMLT over BDPT).
 
-TPU-native redesign of src/integrators/mlt.rs: the reference's per-chain
+Array-program redesign of src/integrators/mlt.rs: the reference's per-chain
 MLTSampler objects with lazy primary-sample-space mutations (:54-225)
 become explicit primary-sample ARRAYS (chains x dims) mutated in bulk;
 bootstrap (:287-322) and the Markov chains (:324-377) are batched over all
@@ -32,7 +32,7 @@ cross-depth fusion would amortize further.
   distributions; what the lazy accumulation actually buys the reference
   is CPU time — untouched dimensions pay nothing until read. Our chains
   mutate every dimension of the (chains x dims) array in bulk each step,
-  which on a TPU is a single fused elementwise op — lazy per-dimension
+  which is a single fused elementwise op — lazy per-dimension
   modification-time tracking would ADD divergent bookkeeping to save
   vector flops that are effectively free, so the accumulated form is
   deliberately not ported.
@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import logging
 import time
+from functools import partial
 
 import numpy as np
 
@@ -183,6 +184,12 @@ def mlt_chain_step(sa, static, possible, cam, cdf, depth, W, H, sigma, p_large,
     return u_next, nxt, fs
 
 
+# XLA's CUDA-graph capture (command buffers) rejects a kernel of the MLT
+# programs on the H100 ("Failed to add kernel node to a CUDA graph:
+# CUDA_ERROR_INVALID_VALUE", jax 0.9.0), so they compile without it.
+NO_COMMAND_BUFFER = {"xla_gpu_enable_command_buffer": ""}
+
+
 def render_mlt(cs, seed: int = 0, progress=None):
     """Host-driven MLT: bootstrap + chains per depth."""
     desc = cs.description
@@ -214,7 +221,8 @@ def render_mlt(cs, seed: int = 0, progress=None):
 
     t0 = time.time()
     for depth in range(max_depth + 1):
-        l_jit = jax.jit(lambda u: _l_fn(sa, static, possible, cam, cdf, u, depth, W, H))
+        l_jit = jax.jit(lambda u: _l_fn(sa, static, possible, cam, cdf, u, depth, W, H),
+                        compiler_options=NO_COMMAND_BUFFER)
 
         # --- bootstrap (mlt.rs :287-322) ---
         u_boot = jnp.asarray(rstate.rand(n_boot, D).astype(np.float32))
@@ -244,7 +252,7 @@ def render_mlt(cs, seed: int = 0, progress=None):
         n_blocks = (n_mut + K - 1) // K
         n_mut = n_blocks * K
 
-        @jax.jit
+        @partial(jax.jit, compiler_options=NO_COMMAND_BUFFER)
         def chain_block(u_cur, cur, m0):
             def body(carry, m):
                 u, c, acc = carry

@@ -1,6 +1,6 @@
 """Realistic camera: full lens-system ray tracing.
 
-TPU-native port of src/cameras/realistic.rs: lens element interfaces come
+Array-program port of src/cameras/realistic.rs: lens element interfaces come
 from a lens description file (rows of curvature-radius / thickness / eta /
 aperture-diameter in mm, front element first); rays start on the film,
 refract through every element (a STATIC python loop — element count is

@@ -2,7 +2,7 @@
 
 The reference threads mutable sampler objects through the render loop
 (src/core/sampler.rs, src/core/rng.rs PCG32, src/core/lowdiscrepancy.rs).
-On TPU every sample must be a pure function of (pixel, sample_index,
+On the device every sample must be a pure function of (pixel, sample_index,
 dimension), so samplers become stateless counter-based hashes / generator
 matrices over uint32 lanes — the same decomposition the reference's *global*
 samplers already use (get_index_for_sample / sample_dimension).

@@ -64,8 +64,8 @@ def sobol_dim_dyn(sample_idx, dim, scramble, max_dim: int = 64):
         _SOBOL_COLS = np.stack([matrix(k) for k in range(max_dim)]).astype(np.uint32)
     cols = jnp.asarray(_SOBOL_COLS)[jnp.clip(jnp.asarray(dim), 0, max_dim - 1)]  # (..., 32)
     idxu = jnp.asarray(sample_idx).astype(jnp.uint32)
-    res = jnp.broadcast_to(jnp.asarray(scramble, jnp.uint32),
-                           jnp.broadcast_shapes(idxu.shape, cols.shape[:-1]))
+    scr = jnp.asarray(scramble, jnp.uint32)
+    res = jnp.broadcast_to(scr, jnp.broadcast_shapes(idxu.shape, cols.shape[:-1], scr.shape))
     for j in range(32):
         res = res ^ jnp.where(((idxu >> j) & jnp.uint32(1)) > 0, cols[..., j], jnp.uint32(0))
     return rng.u32_to_float(res)
@@ -386,7 +386,7 @@ def sobol_tables(width: int, height: int, spp: int):
 
 def sobol_global_index(aux, px, py, sample_idx):
     """Global Sobol index whose dims (0,1) land in pixel (px,py) at frame
-    sample_idx (the TPU-vectorized sobol_interval_to_index)."""
+    sample_idx (the vectorized sobol_interval_to_index)."""
     m = aux["m"]
     frame = jnp.asarray(sample_idx).astype(jnp.uint32)
     delta = jnp.zeros_like(frame) if frame.ndim else jnp.uint32(0)

@@ -12,7 +12,6 @@ from ..scene.arrays import (
     GEOM_TRI, QUADRIC_CONE, QUADRIC_CYLINDER, QUADRIC_DISK, QUADRIC_HYPERBOLOID,
     QUADRIC_PARABOLOID, SceneArrays,
 )
-from .gather import gather_rows
 from .affine import xf_point as xf_point_b, xf_vector, xf_vector_t
 from .intersect import _xform_point
 
@@ -76,10 +75,9 @@ def apply_bump(sa: SceneArrays, static, si):
     """
     if not getattr(static, "has_bump", False):
         return si
-    from .gather import gather_rows
     from .texture import eval_textures
 
-    tid = gather_rows(sa.mat_bump, jnp.maximum(si["mat"], 0))
+    tid = sa.mat_bump[jnp.maximum(si["mat"], 0)]
     has = tid >= 0
     du = 0.0005
     dv = 0.0005
@@ -129,21 +127,21 @@ def surface_interaction(sa: SceneArrays, hit, o, d, time=None):
     valid = hit["prim"] >= 0
     t = jnp.where(valid, hit["t"], 1.0)
     has_inst0 = sa.prim_inst is not None and sa.inst_i2w is not None and sa.inst_i2w.shape[0] > 1
-    # fused fat-row gather: TPU row gathers are row-count-bound, so ONE
+    # fused fat-row gather: ONE
     # (P, 32) row replaces the ~8 per-hit table gathers (builder
     # prim_shade_tab; motion/instancing keep the per-table path — their
     # keyframe lerps/instance transforms need the raw tables)
     fat = None
     if (getattr(sa, "prim_shade_tab", None) is not None and time is None
             and not has_inst0):
-        fat = gather_rows(sa.prim_shade_tab, prim)  # (R, 32)
+        fat = sa.prim_shade_tab[prim]  # (R, 32)
         kind = fat[:, 24].astype(jnp.int32)
         flags = fat[:, 25].astype(jnp.int32)
         geom = fat[:, 28].astype(jnp.int32)
     else:
-        kind = gather_rows(sa.prim_kind, prim)
-        geom = gather_rows(sa.prim_geom, prim)
-        flags = gather_rows(sa.prim_flags, prim)
+        kind = sa.prim_kind[prim]
+        geom = sa.prim_geom[prim]
+        flags = sa.prim_flags[prim]
     is_tri = kind == GEOM_TRI
 
     p = o + d * t[..., None]
@@ -164,7 +162,7 @@ def surface_interaction(sa: SceneArrays, hit, o, d, time=None):
         tuv = fat[:, 18:24].reshape(-1, 3, 2)
     elif sa.tri_p.shape[0] > 0:
         ti = jnp.where(is_tri, geom, 0)
-        tv = gather_rows(sa.tri_p, ti)  # (R, 3, 3)
+        tv = sa.tri_p[ti]  # (R, 3, 3)
         if time is not None and sa.anim is not None:
             # exact per-ray TRS interpolation (device/motion.py) — must
             # match the intersect path so p/ng agree with the hit
@@ -177,10 +175,10 @@ def surface_interaction(sa: SceneArrays, hit, o, d, time=None):
             if time is not None and sa.tri_p_end is not None:
                 from .intersect import _motion_quad
 
-                tv = _motion_quad(tv, gather_rows(sa.tri_p_end, ti),
-                                  gather_rows(sa.tri_p_mid, ti) if sa.tri_p_mid is not None else None,
+                tv = _motion_quad(tv, sa.tri_p_end[ti],
+                                  sa.tri_p_mid[ti] if sa.tri_p_mid is not None else None,
                                   time[:, None, None])
-        tn = gather_rows(sa.tri_n, ti)
+        tn = sa.tri_n[ti]
         if time is not None and sa.anim is not None and G is not None:
             # normals move by the inverse-transpose of G's linear part
             # (transform.rs xnormal semantics)
@@ -188,13 +186,13 @@ def surface_interaction(sa: SceneArrays, hit, o, d, time=None):
 
             Ginv = _affine_inverse(G)  # (R, 3, 4)
             tn = jnp.einsum("rji,rkj->rki", Ginv[:, :3, :3], tn)
-        tuv = gather_rows(sa.tri_uv, ti)
+        tuv = sa.tri_uv[ti]
         if has_inst:
             # instanced prims store instance-space vertices/normals: bring
             # the shading geometry to world (normals via (w2i)^T)
-            iid = gather_rows(sa.prim_inst, prim)
-            i2w = gather_rows(sa.inst_i2w, iid)  # (R, 3, 4)
-            w2i = gather_rows(sa.inst_w2i, iid)
+            iid = sa.prim_inst[prim]
+            i2w = sa.inst_i2w[iid]  # (R, 3, 4)
+            w2i = sa.inst_w2i[iid]
             tv = jnp.stack([
                 xf_point_b(i2w, tv[:, 0]), xf_point_b(i2w, tv[:, 1]), xf_point_b(i2w, tv[:, 2])
             ], axis=1)
@@ -249,8 +247,8 @@ def surface_interaction(sa: SceneArrays, hit, o, d, time=None):
 
     if sa.sph_param.shape[0] > 0:
         si = jnp.where(~is_tri, geom, 0)
-        o2w = gather_rows(sa.sph_o2w, si)
-        w2o = gather_rows(sa.sph_w2o, si)
+        o2w = sa.sph_o2w[si]
+        w2o = sa.sph_w2o[si]
         if time is not None and sa.anim is not None:
             from .motion import _affine_inverse, motion_matrices
 
@@ -260,14 +258,14 @@ def surface_interaction(sa: SceneArrays, hit, o, d, time=None):
             from .intersect import _motion_quad
 
             has_mid = sa.sph_w2o_mid is not None
-            w2o = _motion_quad(w2o, gather_rows(sa.sph_w2o_end, si),
-                               gather_rows(sa.sph_w2o_mid, si) if has_mid else None,
+            w2o = _motion_quad(w2o, sa.sph_w2o_end[si],
+                               sa.sph_w2o_mid[si] if has_mid else None,
                                time[:, None, None])
-            o2w = _motion_quad(o2w, gather_rows(sa.sph_o2w_end, si),
-                               gather_rows(sa.sph_o2w_mid, si) if has_mid else None,
+            o2w = _motion_quad(o2w, sa.sph_o2w_end[si],
+                               sa.sph_o2w_mid[si] if has_mid else None,
                                time[:, None, None])
-        par = gather_rows(sa.sph_param, si)
-        qk = gather_rows(sa.sph_kind, si)
+        par = sa.sph_param[si]
+        qk = sa.sph_kind[si]
         is_cyl = qk == QUADRIC_CYLINDER
         is_disk = qk == QUADRIC_DISK
         is_cone = qk == QUADRIC_CONE
@@ -409,9 +407,9 @@ def surface_interaction(sa: SceneArrays, hit, o, d, time=None):
         "dpdu": dpdu,
         "dpdv": dpdv,
         "mat": jnp.where(valid, fat[:, 26].astype(jnp.int32) if fat is not None
-                         else gather_rows(sa.prim_mat, prim), 0),
+                         else sa.prim_mat[prim], 0),
         "light": jnp.where(valid, fat[:, 27].astype(jnp.int32) if fat is not None
-                           else gather_rows(sa.prim_light, prim), -1),
+                           else sa.prim_light[prim], -1),
         "prim": hit["prim"],
         "wo": -d,
     }

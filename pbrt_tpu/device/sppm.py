@@ -1,6 +1,6 @@
 """Stochastic progressive photon mapping (SPPM).
 
-TPU-native redesign of src/integrators/sppm.rs: the reference's three
+Array-program redesign of src/integrators/sppm.rs: the reference's three
 parallel passes per iteration map to three batched device programs —
 
 - camera pass (:124-256): the wavefront machinery traced to the first

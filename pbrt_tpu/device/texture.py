@@ -286,16 +286,14 @@ def eval_textures(sa: SceneArrays, programs, uv, p, duvdx=None, duvdy=None):
 
 def material_param(sa: SceneArrays, tex_values, mat_ids, slot):
     """Per-ray value of a material parameter slot: constant or texture."""
-    from .gather import gather_rows
 
-    const = gather_rows(sa.mat_const[:, slot], mat_ids)  # (R, 3)
-    tid = gather_rows(sa.mat_tex[:, slot], mat_ids)  # (R,)
+    const = sa.mat_const[:, slot][mat_ids]  # (R, 3)
+    tid = sa.mat_tex[:, slot][mat_ids]  # (R,)
     if tex_values.shape[0] == 0:
         return const
     # texture-id dispatch as a static where-chain: the leading (X,) axis is
-    # tiny and static, and per-ray advanced indexing into (X, R, 3) is a
-    # scalar-core gather on TPU (measured ~3 ms per call at 500k rays vs
-    # ~0.2 ms for the chain)
+    # tiny and static, and a select chain fuses where per-ray advanced
+    # indexing into (X, R, 3) would be a gather
     out = const
     for x in range(tex_values.shape[0]):
         out = jnp.where((tid == x)[:, None], tex_values[x], out)

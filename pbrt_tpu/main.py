@@ -11,7 +11,7 @@ import time
 
 
 def build_arg_parser():
-    p = argparse.ArgumentParser(prog="pbrt_tpu", description="TPU-native pbrt renderer")
+    p = argparse.ArgumentParser(prog="pbrt_tpu", description="pbrt renderer on JAX")
     p.add_argument("scene", help=".pbrt scene file")
     p.add_argument("--nthreads", "-t", type=int, default=0, help="accepted for compatibility; device parallelism is automatic")
     p.add_argument("--outfile", "-o", default="", help="output image path (overrides scene Film filename)")

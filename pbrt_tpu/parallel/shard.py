@@ -1,6 +1,6 @@
 """Multi-chip rendering: shard the pixel/ray axis over a device mesh.
 
-TPU-native equivalent of the reference's rayon tile parallelism
+Equivalent of the reference's rayon tile parallelism
 (src/core/integrator.rs:276-396), built on EXPLICIT `shard_map` (not GSPMD
 propagation): each device traces its own disjoint pixel slice, so every
 per-wave sort (ray-coherence Morton ordering, SPPM cell sorts) is
@@ -27,10 +27,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax.experimental.shard_map import shard_map
-except ImportError:  # newer jax
-    from jax import shard_map  # type: ignore[attr-defined]
+from jax import shard_map
 
 from ..device.camera import make_camera
 from ..render import _one_sample_wave
@@ -127,7 +124,7 @@ def render_sharded_step(cs, desc, mesh: Mesh, spp: int | None = None, seed: int 
         local_step, mesh=mesh,
         in_specs=(P("rays"), P("rays"), P("rays"), P()),
         out_specs=P("rays"),
-        check_rep=False,
+        check_vma=False,
     )
     img = jax.jit(sharded)(px, py, pids, jnp.uint32(seed))
     return img[:R]
@@ -236,7 +233,7 @@ def render_sppm_sharded_step(cs, desc, mesh: Mesh, n_iters: int = 1, seed: int =
         local_loop, mesh=mesh,
         in_specs=(P("rays"), P("rays"), P("rays"), P()),
         out_specs=P("rays"),
-        check_rep=False,
+        check_vma=False,
     )
     img = jax.jit(sharded)(px_j, py_j, pids_j, jnp.uint32(seed))
     return np.asarray(img[:R])
@@ -296,7 +293,7 @@ def render_bdpt_sharded_step(cs, desc, mesh: Mesh, spp: int = 1, seed: int = 0):
         local_step, mesh=mesh,
         in_specs=(P("rays"), P("rays"), P("rays"), P("rays"), P()),
         out_specs=(P("rays"), P()),
-        check_rep=False,
+        check_vma=False,
     )
     L, splat = jax.jit(sharded)(px_j, py_j, pids_j, valid_j, jnp.uint32(seed))
     img = np.asarray(L[:R], np.float64) + np.asarray(splat[:R], np.float64)
@@ -314,7 +311,7 @@ def render_mlt_sharded_step(cs, desc, mesh: Mesh, seed: int = 0, depth: int = 1,
     given chain mutates identically regardless of the mesh shape.
 
     Returns the depth-d film ((H*W, 3) ndarray, already b-normalized)."""
-    from ..device.mlt import _l_fn, mlt_chain_step
+    from ..device.mlt import NO_COMMAND_BUFFER, _l_fn, mlt_chain_step
 
     sa = cs.arrays
     static = cs.static
@@ -344,7 +341,8 @@ def render_mlt_sharded_step(cs, desc, mesh: Mesh, seed: int = 0, depth: int = 1,
         return jnp.where(jnp.isfinite(lum), lum, 0.0)
 
     lum = jax.jit(shard_map(boot_local, mesh=mesh_c, in_specs=(P("chains"),),
-                            out_specs=P("chains"), check_rep=False))(u_boot_j)
+                            out_specs=P("chains"), check_vma=False),
+                  compiler_options=NO_COMMAND_BUFFER)(u_boot_j)
     lum_np = np.asarray(lum, np.float64)
     b_d = lum_np.mean()
     if b_d <= 0:
@@ -365,6 +363,7 @@ def render_mlt_sharded_step(cs, desc, mesh: Mesh, seed: int = 0, depth: int = 1,
 
     film = jax.jit(shard_map(chains_local, mesh=mesh_c,
                              in_specs=(P("chains"), P("chains")),
-                             out_specs=P(), check_rep=False))(u_cur, chain_ids)
+                             out_specs=P(), check_vma=False),
+                   compiler_options=NO_COMMAND_BUFFER)(u_cur, chain_ids)
     out = np.asarray(film, np.float64) * (b_d * n_pix / max(n_mut * n_chains, 1))
     return out.astype(np.float32)

@@ -1,6 +1,6 @@
 """SceneArrays: the flat SoA device representation of a scene.
 
-This is the TPU-native replacement of the reference's trait-object scene graph
+This is the array-program replacement of the reference's trait-object scene graph
 — every shape, material, light and texture becomes rows of fixed-width arrays
 indexed by integer ids, so device kernels are pure batched array programs
 (design mandate: SURVEY.md §7; reference inventory: src/core/primitive.rs,
@@ -187,21 +187,12 @@ class SceneArrays:
     kd_prim_ids: jax.Array | None = None  # (M,) i32
     kd_lo: jax.Array | None = None  # (3,)
     kd_hi: jax.Array | None = None  # (3,)
-    # --- wide BVH tables for the Pallas traversal (scene/widebvh.py);
-    # None unless static.has_wide ---
-    wnode_tab: jax.Array | None = None  # (ceil(Nw/8)*8, 128) f32
-    wprim_tab: jax.Array | None = None  # (ceil(n_oct/8)*8, 128) f32
-    wslot_prim: jax.Array | None = None  # (n_oct*8,) i32 slot -> prim row
-    wmeta_tab: jax.Array | None = None  # (n_nodes*8,) i32 child metas (SMEM)
-    # per-prim shading-normal rows (prim_tab layout, lanes 0:9 = n0/n1/n2
-    # xyz); only built when a wide-eligible mesh has vertex normals
-    wattr_tab: jax.Array | None = None
     # per-material bump-map float texture id, -1 = none (material.rs:46-87
     # bump()); only consulted when static.has_bump
     mat_bump: jax.Array | None = None
     # fused per-prim shading row (P, 32): tri verts(0:9) normals(9:18)
     # uv(18:24) kind(24) flags(25) mat(26) light(27) geom(28) — ONE
-    # row-count-bound gather instead of ~8 (see shading.surface_interaction)
+    # row gather instead of ~8 (see shading.surface_interaction)
     prim_shade_tab: jax.Array | None = None
     # --- quadratic-motion mid-shutter keyframes (parser/api.py slerp
     # sample); None unless a shutter transform ROTATES — linear motion
@@ -220,15 +211,6 @@ class SceneArrays:
     #  "s0","s1" (G,3,3), "theta" (G,)}
     anim_gid: jax.Array | None = None  # (P,) i32 animation group per prim
     anim_c: jax.Array | None = None  # (P, 3, 4) per-prim compose constant
-    # --- cluster-list traversal tables (scene/clusters.py); None unless
-    # static.has_cluster ---
-    cl_lo: jax.Array | None = None  # (C, 3) f32 cluster AABB mins
-    cl_hi: jax.Array | None = None  # (C, 3) f32 cluster AABB maxs
-    # binned tier (device/binned.py): gather-layout cluster tris + supernodes
-    cl_rows: jax.Array | None = None  # (C, 32, 12) f32 cluster tri blocks
-    su_lo: jax.Array | None = None  # (S, 3) f32 supernode AABB mins
-    su_hi: jax.Array | None = None  # (S, 3) f32 supernode AABB maxs
-    su_bounds: jax.Array | None = None  # (S, SUPER_M*8) f32 member-bounds rows
 
 
 @dataclass
@@ -292,14 +274,7 @@ class SceneStatic:
     has_alpha: bool = False  # any prim carries an alpha/shadow-alpha cutout mask
     accel_kind: str = "bvh"  # "bvh" | "kdtree" (Accelerator directive)
     kd_max_leaf: int = 1  # longest kd leaf list (device scan bound)
-    has_wide: bool = False  # wide-BVH tables built (Pallas traversal eligible)
-    wide_root: int = 1  # wide-BVH root node id
     has_cone_sphere_lights: bool = False  # any full-sphere area light (cone NEE eligible)
-    has_wide_tri: bool = False  # wide tables over the TRIANGLE subset exist
-    # (true whenever has_wide is; also for mixed tri+sphere scenes, where
-    # the XLA wide path stays off but the wide megakernel bakes the spheres)
-    has_cluster: bool = False  # cluster-list traversal tables built
-    n_clusters: int = 0
 
 
 def scene_byte_size(sa: SceneArrays) -> int:

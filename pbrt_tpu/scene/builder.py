@@ -1,6 +1,6 @@
 """Scene compiler: SceneDescription (host records) -> SceneArrays (device SoA).
 
-This is the TPU-native equivalent of the reference's world_end scene assembly
+This is the array-program equivalent of the reference's world_end scene assembly
 (/root/reference/src/core/api.rs:1715-1756 + RenderOptions::make_scene :244):
 instead of constructing a Primitives enum tree, every shape is flattened into
 triangle/sphere rows, materials into fixed-width parameter blocks with texture
@@ -893,8 +893,8 @@ def compile_scene(desc: SceneDescription) -> CompiledScene:
         prim_medium = _perm(prim_medium)
         prim_alpha = _perm(prim_alpha)
         prim_shadow_alpha = _perm(prim_shadow_alpha)
-        # keep the AABB lists aligned with the permuted prim rows (the wide
-        # BVH build below pairs them with per-prim verts via prim_geom)
+        # keep the AABB lists aligned with the permuted prim rows (the
+        # kd-tree build below reads them)
         prim_lo = _perm(prim_lo)
         prim_hi = _perm(prim_hi)
         prim_anim_gid = _perm(prim_anim_gid)
@@ -1081,92 +1081,10 @@ def compile_scene(desc: SceneDescription) -> CompiledScene:
     elif accel_kind == "kdtree":
         accel_kind = "bvh"  # tiny scenes use the brute-force path anyway
 
-    # --- wide BVH for the Pallas traversal kernel (device/pallas_bvh.py) ---
-    # eligible: triangle-only static scenes big enough that the BVH matters.
-    has_wide = False
-    has_wide_tri = False
-    wide = None
-    pk_np = np.asarray(prim_kind) if n_prims else np.zeros(0, np.int64)
-    tri_prim_rows = np.where(pk_np == GEOM_TRI)[0]
-    all_tri = n_prims > 0 and len(tri_prim_rows) == n_prims
-    # pure-tri scenes: the XLA wide path covers everything (has_wide).
-    # mixed scenes with a handful of full spheres: build the tables over the
-    # TRIANGLE subset only, for the wide megakernel (which bakes the spheres
-    # as constants); the XLA path keeps its own BVH (has_wide stays False)
-    mixed_ok = (not all_tri and len(tri_prim_rows) > BRUTE_FORCE_MAX_PRIMS
-                and 0 < len(sph_o2w) <= 8)
-    if (
-        n_prims > BRUTE_FORCE_MAX_PRIMS
-        and accel_kind == "bvh"
-        and not any_motion
-        and len(inst_i2w_rows) == 1
-        and (all_tri or mixed_ok)
-    ):
-        from .widebvh import build_wide_bvh
-
-        rows = tri_prim_rows
-        pg_all = np.asarray(prim_geom)[rows]
-        tv = tri_p_cat[pg_all]  # (T, 3, 3) per-prim triangle verts
-        # shading payload in the spare row columns (cols 11/12/13): the wide
-        # megakernel extracts winner mat/light/flip with leaf-phase masked
-        # reductions (exact in f32: ids < 2^24)
-        extra = np.stack([
-            np.asarray(prim_mat, np.float32)[rows],
-            np.asarray(prim_light, np.float32)[rows],
-            np.asarray(prim_flags, np.float32)[rows],
-        ], axis=1)
-        # per-vertex shading normals + uvs ride a second prim-shaped table
-        # so smooth/uv-mapped meshes stay eligible for the wide megakernel;
-        # flat meshes store the face normal at all 3 verts (builder above),
-        # so the in-kernel interpolation degenerates to exactly ng — no
-        # flag needed. attr lanes: 0:9 = n0/n1/n2 xyz, 9:15 = uv0/uv1/uv2
-        attr = None
-        tn_all = _cat(tri_n, (3, 3))[pg_all]  # (T, 3, 3)
-        tuv_all = _cat(tri_uv, (3, 2))[pg_all]  # (T, 3, 2)
-        default_uv = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0]], tuv_all.dtype)
-        need_ns = bool((np.asarray(prim_flags, np.int64)[rows] & FLAG_HAS_SHADING_N).any())
-        need_uv = bool(tuv_all.shape[0]) and not np.array_equal(
-            tuv_all, np.broadcast_to(default_uv, tuv_all.shape))
-        if need_ns or need_uv:
-            attr = np.concatenate([
-                tn_all.reshape(len(rows), 9),
-                tuv_all.reshape(len(rows), 6),
-            ], axis=1).astype(np.float32)
-        wide = build_wide_bvh(
-            np.asarray(prim_lo)[rows], np.asarray(prim_hi)[rows],
-            tv[:, 0], tv[:, 1], tv[:, 2],
-            extra_cols=extra,
-            attr_cols=attr,
-        )
-        has_wide_tri = True
-        has_wide = all_tri
-        # decide the joint-vs-sequential traversal kernel NOW, eagerly:
-        # the probe must never first fire inside the wave jit (see
-        # device/pallas_bvh._joint_probe)
-        from ..device.pallas_bvh import _joint_probe
-
-        _joint_probe()
-
-    # --- cluster-list traversal tables (device/cluster_list.py): the
-    # mesh-scene closest/any-hit tier. Same eligibility as the pure-tri
-    # wide path; prim rows ride the table so shading needs no remap ---
-    has_cluster = False
-    cluster = None
-    if has_wide and os.environ.get("PBRT_TPU_CLUSTER", "1") != "0":
-        from .clusters import build_sah_clusters
-
-        rows = tri_prim_rows
-        tvc = tri_p_cat[np.asarray(prim_geom)[rows]]
-        cluster = build_sah_clusters(
-            tvc[:, 0], tvc[:, 1], tvc[:, 2], rows.astype(np.float32), K=32)
-        has_cluster = True
-
     # fused per-prim shading row (P, 32): verts(0:9) normals(9:18) uv(18:24)
-    # kind(24) flags(25) mat(26) light(27) geom(28). TPU row gathers are
-    # ROW-COUNT-bound (~32 Mrows/s regardless of 256B-1536B row size,
-    # ROOFLINE r4), so surface_interaction's ~8 per-hit gathers collapse
-    # into ONE fat-row gather — measured 48ms -> ~12ms per 262k-lane wave.
-    # Triangle rows only; quadrics keep their table gathers (tiny counts).
+    # kind(24) flags(25) mat(26) light(27) geom(28): surface_interaction's
+    # ~8 per-hit lookups become ONE row gather. Triangle rows only; quadrics
+    # keep their table gathers (tiny counts).
     _np_prim_kind = np.asarray(prim_kind, dtype=np.int32)
     _np_prim_geom = np.asarray(prim_geom, dtype=np.int32)
     shade_tab = np.zeros((max(len(_np_prim_kind), 1), 32), np.float32)
@@ -1252,26 +1170,6 @@ def compile_scene(desc: SceneDescription) -> CompiledScene:
         inst_i2w=jnp.asarray(np.asarray(inst_i2w_rows, dtype=np.float32).reshape(-1, 3, 4)),
         inst_w2i=jnp.asarray(np.asarray(inst_w2i_rows, dtype=np.float32).reshape(-1, 3, 4)),
         prim_shadow_alpha_tex=jnp.asarray(np.asarray(prim_shadow_alpha, dtype=np.int32)),
-        wnode_tab=jnp.asarray(wide.node_tab) if has_wide_tri else None,
-        wprim_tab=jnp.asarray(wide.prim_tab) if has_wide_tri else None,
-        wattr_tab=jnp.asarray(wide.attr_tab)
-        if (has_wide_tri and wide.attr_tab is not None) else None,
-        wslot_prim=jnp.asarray(wide.slot_prim) if has_wide_tri else None,
-        wmeta_tab=jnp.asarray(wide.meta_tab) if has_wide_tri else None,
-        cl_lo=jnp.asarray(cluster.cl_lo) if has_cluster else None,
-        cl_hi=jnp.asarray(cluster.cl_hi) if has_cluster else None,
-        # binned-tier gather layout: (C, 12*K) COMPONENT-major flat rows —
-        # gather results stay rank-2 with a 128-multiple minor axis (a
-        # (C, K, 12) layout pads the 12-lane axis to 128 on gather: 42x)
-        cl_rows=(jnp.asarray(np.ascontiguousarray(
-            cluster.tri_rows.reshape(cluster.n_clusters, cluster.K, 12)
-            .transpose(0, 2, 1).reshape(cluster.n_clusters, 12 * cluster.K)))
-            if has_cluster else None),
-        su_lo=jnp.asarray(cluster.su_lo) if has_cluster else None,
-        su_hi=jnp.asarray(cluster.su_hi) if has_cluster else None,
-        # (su_members stays host-side in ClusterTables — the device tier
-        # reads member ids embedded in su_bounds rows; tests use the host copy)
-        su_bounds=jnp.asarray(cluster.su_bounds) if has_cluster else None,
         anim=(dict(
             q0=jnp.asarray(np.stack([p[1] for p in _anim_parts]).astype(np.float32)),
             q1=jnp.asarray(np.stack([p[4] for p in _anim_parts]).astype(np.float32)),
@@ -1332,11 +1230,6 @@ def compile_scene(desc: SceneDescription) -> CompiledScene:
         has_alpha=any(a >= 0 for a in prim_alpha) or any(a >= 0 for a in prim_shadow_alpha),
         accel_kind=accel_kind if kd is not None else "bvh",
         kd_max_leaf=int(kd.max_leaf) if kd is not None else 1,
-        has_wide=has_wide,
-        has_wide_tri=has_wide_tri,
-        has_cluster=has_cluster,
-        n_clusters=cluster.n_clusters if has_cluster else 0,
-        wide_root=wide.root if has_wide_tri else 1,
     )
     return CompiledScene(arrays=arrays, static=static, description=desc)
 

@@ -313,7 +313,7 @@ class SceneDescription:
 # ---------------------------------------------------------------------------
 # Host tessellation of quadrics (cylinder/disk/cone/paraboloid/hyperboloid)
 # ---------------------------------------------------------------------------
-# The reference intersects these analytically (src/shapes/*.rs). On TPU only
+# The reference intersects these analytically (src/shapes/*.rs). Here only
 # sphere+triangle kernels run on device; the remaining quadrics tessellate to
 # triangle meshes at scene-build time with analytic normals, which preserves
 # the visual result at sufficient resolution. (Analytic device quadrics are a

@@ -3,8 +3,8 @@
 The reference intersects curves analytically by recursive subdivision
 (src/shapes/curve.rs) and converts loopsubdiv/nurbs/heightfield to triangle
 meshes at creation time (src/shapes/loopsubdiv.rs, nurbs.rs,
-heightfield.rs). On TPU only triangle/sphere kernels run on device
-(SURVEY.md §2.4 TPU note), so all four become world-space TriangleMesh
+heightfield.rs). Only triangle and quadric intersection runs on the device
+(SURVEY.md §2.4), so all four become world-space TriangleMesh
 records here.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Render statistics: counters, distributions, ratios, categorized report.
 
-TPU-native equivalent of the reference's thread-local stats macros +
+Device-side equivalent of the reference's thread-local stats macros +
 StatsAccumulator (src/core/stats.rs:14-276, :297-492): there are no threads
 to merge, so counters are a flat host-side registry; device-side quantities
 (rays traced, path vertices) arrive as reduced scalars pulled off the device

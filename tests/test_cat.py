@@ -7,16 +7,20 @@ import numpy as np
 from pbrt_tpu.parser.catprint import cat_scene, format_directive
 from pbrt_tpu.parser.parser import parse_file
 
-SPHERES = "/root/reference/src/scenes/spheres-differentials-texfilt.pbrt"
 
 
 def test_cat_round_trips(tmp_path):
     """cat output re-parses to the same directive stream."""
+    from bench import spheres_pbrt_text
+
+    spheres = tmp_path / "spheres.pbrt"
+    spheres.write_text(spheres_pbrt_text())
     buf = io.StringIO()
-    cat_scene(parse_file(SPHERES), out=buf)
+    cat_scene(parse_file(str(spheres)), out=buf)
     p2 = tmp_path / "roundtrip.pbrt"
     p2.write_text(buf.getvalue())
-    d1 = list(parse_file(SPHERES))
+    d1 = list(parse_file(str(spheres)))
+    assert len(d1) > 10
     d2 = list(parse_file(str(p2)))
     assert [d.name for d in d1] == [d.name for d in d2]
     for a, b in zip(d1, d2):

@@ -55,9 +55,7 @@ def test_persistent_spp_k_interleave_parity():
     """k-way spp interleaving (spp_k > 1: k samples per pixel in flight,
     stride-k regeneration) must reproduce the sequential persistent result —
     the (pixel, sample, dimension) streams are identical, only lane
-    scheduling and fp summation order differ (ROOFLINE §3 coherence lever)."""
-    import os
-
+    scheduling and fp summation order differ."""
     from pbrt_tpu import render as R_
     from pbrt_tpu.scene.builder import compile_scene
 
@@ -69,14 +67,8 @@ def test_persistent_spp_k_interleave_parity():
     py = jnp.asarray(ys.ravel().astype(np.int32))
     pids = jnp.asarray((ys * W + xs).ravel().astype(np.uint32))
 
-    # spp_k is an XLA-wavefront-only argument (the megakernel fns don't
-    # take it — same guard as render_compiled/bench)
-    os.environ["PBRT_TPU_NO_MEGAKERNEL"] = "1"
-    try:
-        wave_p = R_.make_persistent_fn(cs)
-        assert R_.LAST_PERSISTENT_TIER.startswith("xla-wavefront")
-    finally:
-        os.environ.pop("PBRT_TPU_NO_MEGAKERNEL", None)
+    wave_p = R_.make_persistent_fn(cs)
+    assert R_.LAST_PERSISTENT_TIER.startswith("xla-wavefront")
     Ls, ws, nvs = wave_p(cs.arrays, px, py, pids, jnp.uint32(0), 4, jnp.uint32(0))
     for k in (2, 3, 4, 8):  # incl. k > spp and k not dividing spp
         Lk, wk, nvk = wave_p(cs.arrays, px, py, pids, jnp.uint32(0), 4, jnp.uint32(0), k)

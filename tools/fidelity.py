@@ -25,8 +25,8 @@ Scenes:
 - sss-dragon.pbrt is NOT renderable: its PLY geometry files are absent
   from the reference repository itself; recorded as "skipped".
 
-Writes FIDELITY.json at the repo root; tests/test_fidelity.py asserts the
-committed numbers stay under their thresholds.
+Writes FIDELITY.json at the repo root. Needs the scenes and golden PNGs
+of a pbrt-rust checkout at REF (ROADMAP B2).
 
 Usage: python tools/fidelity.py [--fast] [--only spheres|caustic-glass]
 (--only merges the selected scene's fresh numbers into the existing
@@ -37,11 +37,14 @@ from __future__ import annotations
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+STAGE = os.path.join(tempfile.gettempdir(), "pbrt_tpu_fidelity")
 
 REF = "/root/reference"
 
@@ -61,7 +64,7 @@ THRESHOLDS = {"spheres": 3.5e-2, "caustic-glass": 3.0e-2, "sss": 6.0e-3,
               # their residual is sampling noise on the caustic; set from
               # first measurement x ~1.5 once recorded
               "caustic-glass-bdpt": 3.0e-2, "caustic-glass-mlt": 3.0e-2,
-              # mesh cross-integrator agreement (VERDICT r4 weak #4): the
+              # mesh cross-integrator agreement: the
               # 123k-tri wide-BVH production path checked by independent
               # estimators of the same transport (path vs bdpt vs sppm);
               # band = first measurement x ~1.5
@@ -117,15 +120,14 @@ def _stage_spheres_scene() -> str:
     """
     import shutil
 
-    stage = "/tmp/pbrt_tpu_fidelity/spheres"
+    stage = os.path.join(STAGE, "spheres")
     os.makedirs(os.path.join(stage, "textures"), exist_ok=True)
     shutil.copy(f"{REF}/src/scenes/spheres-differentials-texfilt.pbrt", stage)
     # FROZEN ASSET (round 5): assets/lines.png is the round-4 fit
     # (tools/fit_lines.py 28-candidate sweep winner — 128x128, 10
     # dark-gray 0.25 one-pixel lines per axis) committed as-is. The fit
     # sweep is intentionally NO LONGER part of the gate loop: re-fitting
-    # per round let the gate partially optimize itself (VERDICT r4 weak
-    # #3). Re-run tools/fit_lines.py by hand and commit a new asset only
+    # per round let the gate partially optimize itself. Re-run tools/fit_lines.py by hand and commit a new asset only
     # if the golden ever changes.
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     shutil.copy(os.path.join(repo, "assets", "lines.png"),
@@ -144,7 +146,7 @@ def main():
             sys.exit("--only requires a scene name: spheres | caustic-glass | sss"
                      " | caustic-glass-bdpt | caustic-glass-mlt | mesh-agreement")
         only = sys.argv[i + 1]
-    import jax  # noqa: F401  (platform chosen by environment; TPU for real runs)
+    import jax  # noqa: F401  (platform chosen by the environment)
 
     from pbrt_tpu.parser.api import pbrt_parse
     from pbrt_tpu.render import render
@@ -184,7 +186,7 @@ def main():
         _run_sss(results, fast)
     results["scenes"].pop("sss-dragon", None)
 
-    out = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "FIDELITY.json")
+    out = os.path.join(ROOT, "FIDELITY.json")
     if os.path.exists(out):
         # ALWAYS merge into the existing file: scenes not re-rendered this
         # run (e.g. the --only-run caustic-glass-bdpt/mlt gates during a
@@ -231,15 +233,15 @@ AttributeBegin
 AttributeEnd
 WorldEnd
 """ % (16 if fast else 64, REF)
-    stage = "/tmp/pbrt_tpu_fidelity"
+    stage = STAGE
     os.makedirs(stage, exist_ok=True)
     path = os.path.join(stage, "sss_cross.pbrt")
     with open(path, "w") as fh:
         fh.write(scene)
 
     # each estimator in its own subprocess: PBRT_TPU_NO_TABSSS changes the
-    # scene COMPILE, and a TPU fault in one cannot take down the other
-    code = ("import sys, numpy as np; sys.path.insert(0, '/root/repo'); "
+    # scene COMPILE
+    code = (f"import sys, numpy as np; sys.path.insert(0, {ROOT!r}); "
             "from pbrt_tpu.parser.api import pbrt_parse; "
             "from pbrt_tpu.render import render; "
             f"img = render(pbrt_parse({path!r})); "
@@ -318,8 +320,8 @@ def _spheres_region_mses(desc, ours_lin, gold_u8, scale, blur=4):
 
 
 def _run_mesh_agreement(results, fast):
-    """Cross-integrator absolute agreement on the 123k-triangle bench scene
-    (VERDICT r4 weak #4): the production wide-BVH/packet mesh tier's
+    """Cross-integrator absolute agreement on the 123k-triangle bench scene:
+    the production mesh traversal's
     RESULTS — not just its unit invariants — are gated by rendering the
     same enclosed-room scene with path tracing, BDPT and SPPM (three
     independent estimators of the same rendering equation; the reference's
@@ -327,11 +329,10 @@ def _run_mesh_agreement(results, fast):
     within a variance-justified band plus a blurred-MSE ceiling.
 
     The film is small (200x100) but the GEOMETRY is the full 123k-tri
-    terrain, so a wrong-but-plausible traversal epsilon or widebvh attr
-    reduction shifts the indirect component and trips the gate."""
+    terrain, so a wrong-but-plausible traversal epsilon or shading
+    attribute shifts the indirect component and trips the gate."""
     import numpy as np  # noqa: F811
 
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from bench import _mesh_scene
     from pbrt_tpu.render import render
 
@@ -385,13 +386,13 @@ def _run_spheres(results, fast):
     desc = pbrt_parse(_stage_spheres_scene())
     spp = 4 if fast else 16
     img = render(desc, spp=spp)
-    os.makedirs("/tmp/pbrt_tpu_fidelity", exist_ok=True)
-    np.save("/tmp/pbrt_tpu_fidelity/spheres_render.npy", np.asarray(img))
+    os.makedirs(STAGE, exist_ok=True)
+    np.save(os.path.join(STAGE, "spheres_render.npy"), np.asarray(img))
     # read_image decodes PNG sRGB->linear; re-encode to compare in the
     # golden's own 8-bit sRGB space
     gold = (srgb(read_image(f"{REF}/rendered_scenes/spheres.png")) * 255).astype(np.uint8)
     m = compare(img, gold)  # free scale: lines.png albedo is reconstructed
-    # region decomposition (VERDICT r4 weak #3): split the blurred MSE into
+    # region decomposition: split the blurred MSE into
     # the sphere-silhouette region vs the ground/background so the
     # texture-reconstruction residual is separated from renderer error —
     # a texture-path regression now moves mse_ground even if the total
@@ -426,8 +427,8 @@ def _run_glass(results, fast):
     desc.film.x_resolution = 350
     desc.film.y_resolution = 500
     img = render(desc)
-    os.makedirs("/tmp/pbrt_tpu_fidelity", exist_ok=True)
-    np.save("/tmp/pbrt_tpu_fidelity/glass_render.npy", np.asarray(img))
+    os.makedirs(STAGE, exist_ok=True)
+    np.save(os.path.join(STAGE, "glass_render.npy"), np.asarray(img))
     gold = (srgb(read_image(f"{REF}/rendered_scenes/glass.png")) * 255).astype(np.uint8)
     # glass has no missing assets: the comparison is ABSOLUTE (no fitted
     # scale) and the fit itself must stay within 1.0 +- 0.1
@@ -472,8 +473,8 @@ def _run_glass_alt(results, fast, kind):
         desc.integrator.n_chains = 4096
         img = render(desc)
         budget = {"mutations_per_pixel": desc.integrator.mutations_per_pixel}
-    os.makedirs("/tmp/pbrt_tpu_fidelity", exist_ok=True)
-    np.save(f"/tmp/pbrt_tpu_fidelity/glass_{kind}_render.npy", np.asarray(img))
+    os.makedirs(STAGE, exist_ok=True)
+    np.save(os.path.join(STAGE, f"glass_{kind}_render.npy"), np.asarray(img))
     gold = (srgb(read_image(f"{REF}/rendered_scenes/glass.png")) * 255).astype(np.uint8)
     m = compare(img, gold, allow_scale=False)
     key = f"caustic-glass-{kind}"

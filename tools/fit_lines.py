@@ -12,7 +12,7 @@ in-place between candidates (same 128x128 shape -> jit cache hit), so
 each candidate costs one render, not one compile. Scores are the gate's
 own metric (tools/fidelity.compare, 4x blur, fitted scale).
 
-Usage: python tools/fit_lines.py            (TPU; ~1 min/candidate)
+Usage: python tools/fit_lines.py
        PBRT_TPU_FIT_SPP=4 to change sweep spp (default 4)
 """
 from __future__ import annotations
@@ -26,7 +26,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from fidelity import _stage_spheres_scene, compare, srgb  # noqa: E402
+from fidelity import STAGE, _stage_spheres_scene, compare, srgb  # noqa: E402
 
 
 def gen_tex(n_lines: int, width: int, line_v: float, base_v: float,
@@ -78,7 +78,7 @@ def main():
 
     results.sort(key=lambda r: r["blurred_mse"])
     print("\nBEST:", json.dumps(results[0]))
-    with open("/tmp/pbrt_tpu_fidelity/fit_lines.json", "w") as fh:
+    with open(os.path.join(STAGE, "fit_lines.json"), "w") as fh:
         json.dump(results, fh, indent=1)
 
 

@@ -1,26 +1,23 @@
-"""Phase-profile the production mesh bounce wave (VERDICT r4 task 3).
+"""Phase-profile the production mesh bounce wave.
 
-The packet-tier analog of tools/binned_phases.py: split one persistent-wave
-iteration on the 123k-tri bench scene into its phases and time each as a
-standalone jitted program on a REPRESENTATIVE bounce wave (camera hits ->
-cosine bounce, the same construction cohere_probe.py validated against real
-waves). Phases:
+Splits one persistent-wave iteration on the 123k-tri bench scene into its
+phases and times each as a standalone jitted program on a representative
+bounce wave (camera hits -> cosine bounce). Phases:
 
   sort       ray sort-key + argsort + gather + inverse-perm scatter-back
              (what sort_rays adds around a traversal)
-  traverse   extend-ray closest-hit, production config (pallas wide, sorted)
+  traverse   extend-ray closest-hit, production config (sorted)
   surfint    surface_interaction (hit -> shading record)
   shade      make_bsdf + NEE math (sample_li/bsdf_f/bsdf_pdf/MIS) + BSDF
              continuation sample + RR arithmetic — everything between the
              two traversals except the shadow query itself
-  shadow     NEE shadow any-hit, production config (pallas wide, sorted)
+  shadow     NEE shadow any-hit, production config (sorted)
   regen      camera-sample regeneration for a full wave (generate_rays +
              film-dim sampler draws)
 
 XLA fuses across phase boundaries inside the real wave, so the sum of
 standalone phases overestimates the whole; the FRACTIONS are the signal.
-Run on TPU for real numbers (CPU runs the pallas kernel in interpret mode
-— useless). Prints one JSON line; tee into SWEEP_r05.json.
+Times mean something only on the GPU. Prints one JSON line.
 
 Usage: python tools/wave_phases.py [--lanes 262144] [--reps 5]
 """
@@ -28,12 +25,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _med_time(fn, reps):
